@@ -2,7 +2,7 @@
 
 Runs SA+LCP construction with per-iteration section timers (PSAC_TIMER=1,
 unfused host loop so every phase syncs) or timed fused runs, sweeping the
-levers named in BASELINE.md: kmer_words, dense_factor, resolve_div, and the
+dense-phase levers: kmer_words, dense_factor, resolve_div, and the
 tail-entry capacity fraction.
 
 Usage: python benchmarks/adversarial.py [profile|sweep] [n]

@@ -1,17 +1,17 @@
-"""Primitive measurements driving the round-5 ANSV engine decision.
+"""ANSV primitive timings on the suffix tree's pass.
 
-Times, on the REAL 2^24-DNA LCP array on the chip:
-  - the current dual Pallas run-stack scan and its two single passes,
-  - the blocked vectorized PSV (``bansv.block_psv``) and the cost of
-    fetching the match VALUES (global random gather vs row-local
-    take_along_axis),
-  - one (nt, T, T) all-pairs masked-min pass (the in-tile e_in/H pass a
-    tile-spine furthest_eq engine would add),
-  - the spine size (weak prefix/suffix minima per tile) on the real LCP,
-  - a 2-operand compaction sort.
+Times, on the LCP array of 2^e random DNA (native SA-IS + Kasai on the
+host, so the numbers do not depend on the device SA build):
+  - the suffix tree's ANSV pass (left ``furthest_eq`` + right
+    ``nearest_sm``) through ``parallel.ansv.ansv_local`` on a one-device
+    mesh, i.e. the engine ``PSAC_NSV`` selects (default ``block``),
+  - its strict previous-smaller pass alone (``bansv.block_psv``),
+  - the value gather at the matches,
+  - a 2-operand compaction sort of the same width.
 
 Usage: python benchmarks/ansv_micro.py [log2n]
 """
+import functools
 import os
 import sys
 import time
@@ -22,17 +22,41 @@ import numpy as np
 
 
 def bench(label, fn, *args, reps=3):
+    """Best-of-``reps`` wall time after one warm-up call; returns the output
+    and the time in seconds."""
     import jax
-    out = fn(*args)
-    jax.device_get(jax.tree.leaves(out)[0][:4])  # warm + sync
+    out = jax.block_until_ready(fn(*args))
     best = float("inf")
     for _ in range(reps):
         t0 = time.perf_counter()
-        out = fn(*args)
-        jax.device_get(jax.tree.leaves(out)[0][:4])
+        out = jax.block_until_ready(fn(*args))
         best = min(best, time.perf_counter() - t0)
-    print(f"[ansv_micro] {label}: {best * 1e3:.1f} ms", flush=True)
+    print(f"[ansv_micro] {label}: {best * 1e3:.2f} ms", flush=True)
     return out, best
+
+
+def dna_lcp(n: int, seed: int = 7) -> np.ndarray:
+    """int32 LCP array of ``rand_dna(n, seed)`` from the native oracle."""
+    from psac_tpu import native
+    from psac_tpu.ops.alphabet import rand_dna
+
+    text = rand_dna(n, seed=seed)
+    return native.lcp_array(text, native.suffix_array(text)).astype(np.int32)
+
+
+def st_pass_fn(mesh, s: int):
+    """Jitted single-shard ANSV with the suffix tree's match types."""
+    import jax
+    from jax.sharding import PartitionSpec as P
+
+    from psac_tpu.ops.ansv import FURTHEST_EQ, NEAREST_SM
+    from psac_tpu.parallel.ansv import ansv_local
+    from psac_tpu.parallel.mesh import AXIS
+
+    return jax.jit(jax.shard_map(
+        functools.partial(ansv_local, s=s, p=1, left_type=FURTHEST_EQ,
+                          right_type=NEAREST_SM),
+        mesh=mesh, in_specs=(P(AXIS),), out_specs=(P(AXIS),) * 4 + (P(),)))
 
 
 def main():
@@ -40,86 +64,24 @@ def main():
     n = 1 << e
     import jax
     import jax.numpy as jnp
+    from jax import lax
 
     import psac_tpu
     psac_tpu.enable_compile_cache()
-    from psac_tpu.models.suffix_array import construct_device, encode_and_shard
-    from psac_tpu.ops.alphabet import rand_dna
-    from psac_tpu.parallel.mesh import make_mesh
-
-    mesh = make_mesh(1)
-    text = rand_dna(n, seed=7)
-    xs, alpha, n_, N = encode_and_shard(text, mesh)
-    dsa = construct_device(xs, alpha, n_, N, mesh)
-    # pallas_call outside shard_map rejects mesh-sharded operands: re-put
-    # the LCP unsharded on the single device
-    lcp = jax.device_put(np.asarray(jax.device_get(dsa.lcp)),
-                         jax.devices()[0])
-    jax.device_get(lcp[:4])
-    print(f"[ansv_micro] n={n} N={N}", flush=True)
-
-    from psac_tpu.ops.ansv import FURTHEST_EQ, NEAREST_SM
     from psac_tpu.ops.bansv import block_psv
-    from psac_tpu.ops.nsv_scan import nsv_scan_dual, nsv_scan_left
+    from psac_tpu.parallel.mesh import block_sharding, make_mesh
 
-    # ---- current engines ---------------------------------------------------
-    rev = jax.jit(lambda a: a[::-1])
-    lcp_r = rev(lcp)
-    bench("dual scan (FEQ,NSM)",
-          jax.jit(lambda a, b: nsv_scan_dual(a, b, FURTHEST_EQ, NEAREST_SM,
-                                             False, ())), lcp, lcp_r)
-    bench("single scan FEQ",
-          jax.jit(lambda a: nsv_scan_left(a, FURTHEST_EQ, False, ())), lcp)
-    bench("single scan NSM",
-          jax.jit(lambda a: nsv_scan_left(a, NEAREST_SM, False, ())), lcp)
-    (idx_psv, _), _ = bench("block_psv strict",
-                            jax.jit(lambda a: (block_psv(a, True), 0)), lcp)
-
-    # ---- value fetch at the matches ----------------------------------------
-    bench("x[psv] global gather",
+    d = jax.devices()[0]
+    print(f"[ansv_micro] device: {d.platform} {d.device_kind}; n={n}",
+          flush=True)
+    mesh = make_mesh(1)
+    lcp = jax.device_put(dna_lcp(n), block_sharding(mesh))
+    bench("ST pass (furthest_eq left, nearest_sm right)",
+          st_pass_fn(mesh, n), lcp)
+    idx_psv, _ = bench("block_psv strict",
+                       jax.jit(lambda a: block_psv(a, True)), lcp)
+    bench("x[psv] gather",
           jax.jit(lambda a, i: a[jnp.maximum(i, 0)]), lcp, idx_psv)
-    T = 512
-    nt = N // T
-
-    def rowlocal(a, i):
-        a2 = a.reshape(nt, T)
-        i2 = jnp.clip(i.reshape(nt, T) - jnp.arange(nt, dtype=jnp.int32)[:, None] * T,
-                      0, T - 1)
-        return jnp.take_along_axis(a2, i2, axis=1).reshape(-1)
-
-    bench("x[psv] row-local take_along_axis (clipped in-tile)",
-          jax.jit(rowlocal), lcp, idx_psv)
-
-    # ---- one all-pairs masked-min pass (the e_in tile pass) ----------------
-    for Tp in (256, 512):
-        ntp = N // Tp
-
-        def allpairs(a):
-            a2 = a.reshape(ntp, Tp)
-            j = jnp.arange(Tp, dtype=jnp.int32)
-            # first j < i with x[j] == x[i] (in-tile leftmost equal)
-            eq = (a2[:, None, :] == a2[:, :, None]) & (j[None, None, :] < j[None, :, None])
-            return jnp.min(jnp.where(eq, j[None, None, :], Tp), axis=2)
-
-        bench(f"all-pairs eq-min T={Tp}", jax.jit(allpairs), lcp)
-
-    # ---- spine size on the real LCP ----------------------------------------
-    for Tp in (256, 512, 1024):
-        ntp = N // Tp
-        a2 = np.asarray(jax.device_get(lcp)).reshape(ntp, Tp)
-        pmin = np.minimum.accumulate(a2, axis=1)
-        chain = np.concatenate(
-            [np.ones((ntp, 1), bool), a2[:, 1:] <= pmin[:, :-1]], axis=1)
-        smin = np.minimum.accumulate(a2[:, ::-1], axis=1)[:, ::-1]
-        suff = np.concatenate(
-            [a2[:, :-1] <= smin[:, 1:], np.ones((ntp, 1), bool)], axis=1)
-        spine = (chain | suff).sum()
-        print(f"[ansv_micro] spine T={Tp}: {spine} "
-              f"({100.0 * spine / N:.2f}%; prefix {chain.sum()}, "
-              f"suffix {suff.sum()})", flush=True)
-
-    # ---- compaction sort ----------------------------------------------------
-    from jax import lax
     bench("2-op compaction sort",
           jax.jit(lambda a, b: lax.sort((a, b), num_keys=1)), lcp, idx_psv)
 

@@ -1,8 +1,7 @@
-"""DESA bulk_locate throughput by pattern length (the BASELINE.md rows).
+"""DESA bulk_locate throughput by pattern length.
 
-Builds a 2^27 (or DESA_E) random-DNA index on the real chip and measures
-q/s at pattern lengths 8 / 20 / 64, batch 65536 — the round-3 VERDICT's
-target row is length 64 on the 2^27 index (12K q/s in r3).
+Builds a 2^27 (or DESA_E) random-DNA index on the accelerator and measures
+q/s at pattern lengths 8 / 20 / 64, batch 65536.
 """
 import os
 import sys

@@ -1,8 +1,8 @@
-"""Dense-sort-wall microbenchmarks (VERDICT r4 item 3).
+"""Dense-sort-wall microbenchmarks.
 
-The adversarial 100 MB tier spends ~8.5 s in 4 full-width dense
+The adversarial 100 MB tier spends most of its time in full-width dense
 iterations whose cost is the multi-operand ``lax.sort``.  This bench
-measures the candidate structural levers on the chip:
+measures the candidate structural levers on the accelerator:
 
   a) the baseline k-operand int32 sort at the dense iteration's shape,
   b) packing two 27-bit keys into one int64 lane (fewer comparator
@@ -12,8 +12,7 @@ measures the candidate structural levers on the chip:
      (key..., gidx) with gidx folded into the last key's low bits when
      the key has headroom (exact when key < 2^(31 - log2 N) — it never
      is at 100M; measured anyway at 2^26 to quantify the ceiling),
-  d) a 2-pass LSD radix via scatter (the measured scatter bound from
-     BASELINE.md predicts this loses; one pass is timed to confirm).
+  d) a 2-pass LSD radix via scatter (one pass is timed).
 
 Usage: python benchmarks/sort_micro.py [log2n] [ops]
 """

@@ -214,12 +214,10 @@ def cmd_benchmark_k(args) -> int:
 def cmd_benchmark_ansv(args) -> int:
     """ANSV timing: engines x inputs x type combos (the reference sweeps 6
     impls x 3 inputs, src/benchmark_ansv.cpp:38-171; here the impl axis is
-    the single-shard engine — scan / block / hybrid / spine — selected per
-    call via PSAC_NSV, plus the p>1 routed pipeline when the mesh has
-    several shards)."""
+    the single-shard engine — block / walk — selected per call via
+    PSAC_NSV, plus the p>1 routed pipeline when the mesh has several
+    shards)."""
     import os
-
-    import jax
 
     from psac_tpu.ops.ansv import FURTHEST_EQ, NEAREST_EQ, NEAREST_SM
     from psac_tpu.parallel.ansv import ansv
@@ -238,12 +236,8 @@ def cmd_benchmark_ansv(args) -> int:
             [np.arange(h), np.arange(n - h)[::-1]]).astype(np.int32)
     mesh = _mesh(args)
     p = num_shards(mesh)
-    if args.engines:
-        engines = args.engines.split(",")
-    elif jax.default_backend() == "tpu" and p == 1:
-        engines = ["hybrid", "scan", "block", "spine"]
-    else:
-        engines = [os.environ.get("PSAC_NSV", "")]
+    engines = (args.engines.split(",") if args.engines
+               else [os.environ.get("PSAC_NSV", "")])
     combos = [("sm-sm", (NEAREST_SM, NEAREST_SM)),
               ("feq-sm", (FURTHEST_EQ, NEAREST_SM)),
               ("eq-eq", (NEAREST_EQ, NEAREST_EQ))]
@@ -256,8 +250,6 @@ def cmd_benchmark_ansv(args) -> int:
                 del os.environ["PSAC_NSV"]
             for iname, a in inputs.items():
                 for cname, (lt, rt) in combos:
-                    if eng == "spine" and cname != "feq-sm":
-                        continue  # spine engine serves only the ST pass
                     ansv(a, lt, rt, mesh=mesh)  # warm-up + compile
                     t0 = time.time()
                     for _ in range(args.reps):
@@ -417,7 +409,7 @@ def main(argv=None) -> int:
                    default="all")
     s.add_argument("--engines", default=None,
                    help="comma list of PSAC_NSV engines to sweep "
-                        "(default: hybrid,scan,block,spine on a 1-chip TPU)")
+                        "(block,walk; default: the current PSAC_NSV)")
     s.add_argument("--reps", type=int, default=3)
     s.add_argument("--seed", type=int, default=0)
     s.add_argument("--devices", type=int, default=None)

@@ -38,9 +38,9 @@ class SAConfig:
       construct_lc: also build the left-branching-character array Lc
         (reference template flag ``_CONSTRUCT_LC``), needed by DESA; the
         result lands in ``DeviceSuffixArray.lc``.  Computed post-hoc as one
-        bulk gather — on TPU this beats the reference's interleaved
-        ``bulk_rmq_Lc`` maintenance (``include/suffix_array.hpp:1353-1396``),
-        which would add a routed RMQ to every doubling iteration.
+        bulk gather instead of the reference's interleaved ``bulk_rmq_Lc``
+        maintenance (``include/suffix_array.hpp:1353-1396``), which would
+        add a routed RMQ to every doubling iteration.
       k: initial k-mer length; 0 = auto (max chars that fit the sort key).
       tail_threshold_frac: switch to the sparse "bucket chaising" tail when
         unfinished elements < n * frac (reference uses 1/10,
@@ -50,11 +50,10 @@ class SAConfig:
       factor: prefix-multiplication factor per dense iteration: 2 = classic
         doubling; 3/4 = the reference's ``construct_arr<L>`` tripling/
         quadrupling (SA-only; no LCP support, as in the reference).
-      fused: dispatch k-mer init + the whole sparse tail as ONE device
-        program with a single scalar readback.  Saves one host<->device
-        round trip per construction phase (tens of ms each on remote
-        transports); falls back to the host-driven loop when the active
-        set after init exceeds the fused tail capacity (~N/8).
+      fused: dispatch k-mer init + the dense loop + the whole sparse tail
+        as ONE device program with a single stats readback instead of one
+        host<->device round trip per iteration; falls back to the
+        host-driven loop only if the dense loop hits its iteration bound.
       force_int64: build with int64 indexes even for small texts (texts of
         >= 2^30 chars select int64 automatically — the reference's uint64
         ``index_t`` builds, ``src/psac.cpp:54``).
@@ -75,16 +74,12 @@ class SAConfig:
     # corpora win at higher L until the L+1 live operands bind HBM
     dense_factor: int = 4
     # LCP-resolve chunk divisor of the fused path: chunk = s / resolve_div
-    # (measured on the 16 MiB repetitive corpus: 32 beats 16/8/4)
+    # (chosen on the previous target; re-tuned per ROADMAP A7)
     resolve_div: int = 32
     # pack pairs of 31-bit sort-key columns into int64 lanes in the wide
-    # (>= 6 column) dense sorts — the round-5 built-and-measured attempt on
-    # the dense-sort wall.  An ISOLATED 6-operand sort wins 32% (a 64-bit
-    # sort lane costs the same as a 32-bit lane, benchmarks/sort_micro.py:
-    # 663 -> 453 ms at 2^26), but on the full adversarial pipeline the
-    # required x64 trace context + pack/unpack passes give it all back
-    # (100 MB text tier, F=5: 15.12 s unpacked vs 15.35 s packed), so the
-    # default is OFF; the knob + parity test remain for other shapes
+    # (>= 6 column) dense sorts: fewer sort operands at the price of an
+    # x64 trace context and pack/unpack passes.  Off by default; the knob
+    # + parity test remain until it is decided on the GPU (ROADMAP C4)
     pack_keys: bool = False
     # int32 words of the initial k-mer ranking (the reference packs ONE
     # machine word, include/kmer.hpp:25-40; more words deepen the initial

@@ -1,6 +1,6 @@
 """Distributed Enhanced Suffix Array (DESA) — the SC'19-style pattern index.
 
-TPU-native redesign of the reference's ``dist_desa`` (``include/desa.hpp``):
+Mesh-native redesign of the reference's ``dist_desa`` (``include/desa.hpp``):
 
   * **TLLT** top-level lookup table: inclusive prefix sums of the k-mer
     histogram (reference ``include/lookup_table.hpp:37-148``), replicated on
@@ -511,10 +511,9 @@ def _assemble_desa_inner(xs, alpha, n, N, lcp_block, sa_block, lc_block,
             functools.partial(_sample_compact_local, s=s, p=p, n=n),
             mesh=mesh, in_specs=(P(AXIS),) * 3, out_specs=(P(AXIS),) * 3))
         keys_d, lcp_d, lc_d = compact_fn(keep_dev, lcp_block, lc_block)
-        # pull only the M sampled rows, stacked so ONE device round trip
-        # covers all three arrays (each sync costs ~27ms on remote
-        # transports); jitted because an eager slice of a sharded array
-        # cannot resolve its output sharding
+        # pull only the M sampled rows, stacked so ONE device-to-host copy
+        # covers all three arrays; jitted because an eager slice of a
+        # sharded array cannot resolve its output sharding
         pull = jax.jit(lambda a, b_, c: jax.sharding.reshard(
             jnp.stack([a[:M], b_[:M], c[:M]]), rep_sh))
         got = np.asarray(jax.device_get(pull(keys_d, lcp_d, lc_d)), np.int64)

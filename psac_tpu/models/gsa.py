@@ -1,6 +1,6 @@
 """Generalized suffix array (+LCP) over string sets.
 
-TPU-native redesign of the reference's ``suffix_array::construct_ss``
+Mesh-native redesign of the reference's ``suffix_array::construct_ss``
 (``include/suffix_array.hpp:269-363``) and the ``gsac`` tool
 (``src/gsac.cpp``): all suffixes of all strings sorted together, each suffix
 ending at its own string's end (virtual ``$`` = 0 terminator), indices into
@@ -11,7 +11,7 @@ position order.
 Where the reference builds dist_seqs/split-bucket machinery with
 string-local shifts (``shift_buckets_ds``, ``include/shifting.hpp:374-418``)
 and GSA-specific rebucketing (``rebucket_gsa``, ``include/bucketing.hpp:131``),
-the flat TPU formulation needs only one extra block-sharded array
+the flat formulation needs only one extra block-sharded array
 ``eos[i]`` = one-past-the-end of the string containing position i:
 
   * doubling shift:   B2 = where(i + d < eos[i], ISA[i + d], 0)
@@ -343,11 +343,10 @@ def build_gsa_device(strings, mesh=None,
     p = num_shards(mesh)
     flat, lens = _flatten(strings)
     # ship raw uint8 text + the (m,) string ends; decode codes and expand
-    # the per-position eos array ON DEVICE (host->device bandwidth is the
-    # binding cost on remote transports; eos as int32 would double the
-    # volume and bytes are 4x smaller than codes).  Per-shard staging +
-    # a device-side alphabet histogram keep the host path O(n/p)-light
-    # (a host bincount costs ~0.1 s warm / 1-3 s first-touch at 16 MiB).
+    # the per-position eos array ON DEVICE (eos as int32 would double the
+    # host->device volume and bytes are 4x smaller than codes).  Per-shard
+    # staging + a device-side alphabet histogram keep the host path
+    # O(n/p)-light.
     from psac_tpu.parallel.staging import stage_bytes_block, staged_histogram
 
     xb, n, N = stage_bytes_block(flat, mesh)
@@ -399,7 +398,7 @@ def _build_gsa_inner(xb, alpha, lens, n: int, N: int, mesh, p: int,
 
     if config.fused:
         # one dispatch for the whole construction (init + dense while_loop
-        # + eos-aware two-stage tail); a single (4,) readback
+        # + eos-aware two-stage tail); a single (7,) readback
         m_cap2 = max(8 * b.p, min(N, _pow2ceil(max(256, N // 1024))))
         m_cap_f = max(m_cap2, min(N, _pow2ceil(N // 32)))
         fouts = b.gfused_full(m_cap_f, m_cap2,
@@ -409,7 +408,7 @@ def _build_gsa_inner(xb, alpha, lens, n: int, N: int, mesh, p: int,
         else:
             isa, sa, brow, _active, stats = fouts
             lcp = None
-        ub_f, ue_f, tail_ran, _d_out, tie_ovf = (
+        ub_f, ue_f, tail_ran, _d_out, _dense_it, _tail_it, tie_ovf = (
             int(v) for v in np.asarray(jax.device_get(stats)))
         if ue_f == 0:
             if config.construct_lcp and tie_ovf > 0:

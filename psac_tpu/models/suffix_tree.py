@@ -18,7 +18,7 @@ Parent edges are derived exactly as the reference's ``for_each_parent``
   * each edge's child slot is the character at text[SA[i] + parent_depth]
     (slot 0 past the end of the text).
 
-TPU-native pipeline: one distributed ANSV (``psac_tpu.parallel.ansv``),
+Device pipeline: one distributed ANSV (``psac_tpu.parallel.ansv``),
 one bulk character gather, and one scatter of (parent, slot) -> child id
 into the block-sharded flat node table — all inside a single shard_map.
 Padding positions (the first N-n entries of the padded arrays) take LCP
@@ -189,8 +189,8 @@ def _gst_local(lcp_l, sa_l, xs_l, eos_l, *, s: int, p: int, n: int, sigma: int,
     # IS the string end.  A string end < n is the NEXT string's start, so
     # ``$`` <=> char_idx is a string-start position (or char_idx == n).
     # Fold a start bit into the gathered text: ONE 2s-row gather answers
-    # both the edge char and the ``$`` test (the separate s-row eos gather
-    # cost a full random-gather pass, ~170 ms at 16M on v5e).
+    # both the edge char and the ``$`` test (a separate s-row eos gather
+    # would cost one more full random-gather pass).
     g_txt = global_index_base(s).astype(idt) + jnp.arange(s, dtype=idt)
     prev_eos = halo_from_left(eos_l, 1, p, fill=0)
     eos_prev = jnp.concatenate([prev_eos, eos_l[:-1]])
@@ -220,8 +220,9 @@ def _gst_local(lcp_l, sa_l, xs_l, eos_l, *, s: int, p: int, n: int, sigma: int,
                                    width=width, slots=ch + 1)
     # ``$``-edges are rare (bounded by suffixes that fully match another
     # suffix's prefix): compact them to ``dlr_cap`` rows before the min/max
-    # scatters — a min/max scatter pays all 2s rows otherwise (~4 s at 16M
-    # on TPU, where scatter-combine lowers far slower than scatter-set).
+    # scatters — a min/max scatter pays all 2s rows otherwise (compaction
+    # instead of a full-width scatter-combine is a lowering choice made on
+    # the previous target; ROADMAP C3).
     # Overflow joins the capscale retry (which re-enters with dlr_cap = 2s).
     key_d = jnp.where(valid_dlr, parents, INF)
     key_c, child_c = lax.sort((key_d, childs), num_keys=1)

@@ -1,8 +1,9 @@
 """ctypes bindings to the native sequential oracle (SA-IS + Kasai).
 
-The shared library is built on first use with g++ (no pip deps). This is the
-framework's equivalent of the reference's vendored libdivsufsort verification
-layer (SURVEY.md §2 L6) and the sequential baseline for bench.py.
+The shared library is built from ``sais.cpp`` on first use with g++ (no pip
+deps) and is never committed. This is the framework's equivalent of the
+reference's vendored libdivsufsort verification layer (SURVEY.md §2 L6) and
+the sequential baseline for bench.py and chip_smoke.py.
 """
 
 from __future__ import annotations
@@ -10,6 +11,7 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import tempfile
 
 import numpy as np
 
@@ -20,10 +22,20 @@ _lib = None
 
 
 def _build() -> None:
-    subprocess.run(
-        ["g++", "-O3", "-fPIC", "-shared", "-std=c++17", _SRC, "-o", _SO],
-        check=True, capture_output=True,
-    )
+    """Compile ``sais.cpp`` into a private temporary file next to the target
+    and rename it into place: concurrent processes (test workers) each
+    publish a complete library, and a half-written one is never loaded."""
+    fd, tmp = tempfile.mkstemp(suffix=".so.tmp", dir=_DIR)
+    os.close(fd)
+    try:
+        subprocess.run(
+            ["g++", "-O3", "-fPIC", "-shared", "-std=c++17", _SRC, "-o", tmp],
+            check=True, capture_output=True,
+        )
+        os.replace(tmp, _SO)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
 
 
 def _load():

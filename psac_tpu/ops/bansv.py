@@ -1,10 +1,9 @@
 """Blocked vectorized per-element nearest-smaller-value engine.
 
-The scalar Pallas run-stack scan (``psac_tpu.ops.nsv_scan``) answers ANSV in
-one O(s) pass but is loop-bound at ~50 cycles/element on the TPU scalar
-unit (~0.85 s per direction at 16M).  This engine instead answers the
+A sequential run-stack scan answers ANSV in one O(s) pass, but as one
+dependent scalar chain per side.  This engine instead answers the
 per-element question "last j < i with x[j] < x[i]" with *vectorized block
-compares* that run on the VPU:
+compares*:
 
   1. all-pairs within each B-element block (and against the immediately
      preceding block) — O(s*B) fused compare/reduce work, no gathers;
@@ -191,8 +190,9 @@ def _run_heads(x, psv):
     seg = (k1s != prev1) | (k2s != prev2)
     start_pos = lax.cummax(jnp.where(seg, gidx, -1))
     h_sorted = gs[jnp.maximum(start_pos, 0)]  # monotone gather
-    # un-permute by sorting on gs (a permutation): ~2x faster than the
-    # equivalent .at[gs].set inverse-permutation scatter on TPU
+    # un-permute by sorting on gs (a permutation) instead of the equivalent
+    # .at[gs].set inverse-permutation scatter (a lowering choice made on the
+    # previous target; ROADMAP C3)
     return lax.sort((gs, h_sorted), num_keys=1)[1]
 
 

@@ -3,8 +3,8 @@
 The reference packs k-mers MSB-first into machine words so that integer order
 equals lexicographic order, and computes the LCP of two k-mers via XOR +
 count-leading-zeros (reference ``include/bitops.hpp:169-183``). Here k-mers
-are packed into *pairs* of int32 words (hi, lo) so that no int64 emulation is
-needed on TPU; lexicographic order of the pair equals k-mer order.
+are packed into *pairs* of int32 words (hi, lo) so that the sort keys stay
+int32; lexicographic order of the pair equals k-mer order.
 """
 
 from __future__ import annotations

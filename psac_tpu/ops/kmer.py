@@ -4,8 +4,8 @@ The reference packs k chars MSB-first into one machine word so that integer
 order equals lexicographic order (``include/kmer.hpp:119-177``), choosing
 ``k = get_optimal_k`` to fill the word (``include/kmer.hpp:25-40``). Here a
 k-mer is a *tuple* of int32 words — lexicographic order of the tuple is
-k-mer order — so the hot sort stays on native int32 lanes with no int64
-emulation on TPU.  Two words is the default; three words deepen the initial
+k-mer order — so the hot sort stays on int32 lanes (half the bytes of
+int64 keys).  Two words is the default; three words deepen the initial
 ranking (k = 30 for DNA, 12 for byte text), saving a dense doubling
 iteration on repeat-heavy corpora at one extra sort operand.
 

@@ -8,6 +8,9 @@ Here the oracle tier is:
 2. ``suffix_array_np`` — NumPy prefix-doubling (lexsort), medium inputs.
 3. the native C++ SA-IS oracle in ``psac_tpu/native`` (ctypes), large inputs.
 
+``gsa_naive`` is the string-set counterpart: a direct sort of every
+suffix of every string, each ending at its own string's end.
+
 These are *independent implementations*, not ports of the reference's checkers.
 """
 
@@ -69,3 +72,23 @@ def lcp_kasai(text: bytes | np.ndarray, sa: np.ndarray) -> np.ndarray:
         else:
             h = 0
     return lcp
+
+
+def gsa_naive(parts) -> tuple[np.ndarray, np.ndarray]:
+    """Generalized SA + LCP of a list of byte strings by direct suffix sort
+    (suffixes end at their own string's end; ties in position order),
+    indexed into the concatenation.  Small inputs only."""
+    flat = b"".join(parts)
+    lens = np.array([len(x) for x in parts], np.int64)
+    eos = np.repeat(np.cumsum(lens), lens)
+    order = sorted(range(len(flat)), key=lambda i: (flat[i:eos[i]], i))
+    sa = np.array(order, np.int64)
+    lcp = np.zeros(len(flat), np.int64)
+    for j in range(1, len(flat)):
+        a = flat[sa[j - 1]:eos[sa[j - 1]]]
+        b = flat[sa[j]:eos[sa[j]]]
+        k = 0
+        while k < len(a) and k < len(b) and a[k] == b[k]:
+            k += 1
+        lcp[j] = k
+    return sa, lcp

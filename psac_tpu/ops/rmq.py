@@ -1,6 +1,6 @@
 """Vectorized in-shard O(1)-query range-minimum structure.
 
-TPU-first reformulation of the reference's 3-level succinct RMQ
+Vector reformulation of the reference's 3-level succinct RMQ
 (``include/rmq.hpp:37-339``): fixed-size blocks with per-block prefix/suffix
 minima, a doubling sparse table over the block minima, and an in-block
 doubling table so every query — same-block or cross-block — is O(1) vector
@@ -71,7 +71,8 @@ def build_local_rmq(x, block: int | None = None,
         shifted = jnp.concatenate([prev[w:], jnp.full((min(w, nb),), INF, prev.dtype)])[:nb]
         rows.append(jnp.minimum(prev, shifted))
     # in-block doubling table: same-block queries become two O(1) gathers
-    # (the (q, block) windowed-gather alternative costs ~20x more on TPU)
+    # (chosen over a (q, block) windowed gather on the previous target;
+    # re-measured per ROADMAP C3)
     small = None
     if with_small:
         sm = [x]
@@ -121,7 +122,7 @@ def query_local_rmq(rmq: LocalRMQ, lo, hi):
         cross_min = jnp.minimum(jnp.minimum(rmq.suff[lo], rmq.pref[hi]), mid)
         return jnp.where(bl == bh, same_min, cross_min)
     # --- few-queries mode: edge blocks via two masked block-row gathers
-    # (row-aligned jnp.take is ~13x faster than a vmapped dynamic_slice)
+    # (row-aligned jnp.take instead of a vmapped dynamic_slice)
     xb = rmq.x.reshape(nb, block)
     lw = jnp.take(xb, bl, axis=0)  # (q, block)
     rw = jnp.take(xb, bh, axis=0)
@@ -151,9 +152,8 @@ class ArgLocalRMQ:
     Layout: ONLY a (L, nb) doubling table over block minima — edge blocks
     are answered per query with two masked block-row gathers (`jnp.take`
     of contiguous rows). In-block doubling tables over the full (Lb, s)
-    array were ~10x slower in practice: random gathers from the resulting
-    multi-hundred-MB tables run ~1us/row, while row-aligned window reads
-    are bandwidth-bound."""
+    array trade those reads for random gathers into multi-hundred-MB
+    tables (the choice was made on the previous target; ROADMAP C3)."""
 
     x: jax.Array
     tab_v: jax.Array   # (L, nb) block-min doubling table values

@@ -3,11 +3,11 @@
 These answer, for a batch of q queries over a local (s,) int32 array,
 questions of the form "largest j < start with x[j] < v" or "smallest
 j >= start with x[j] <= v" in O(log s) vectorized steps — one gather into a
-doubling min-table per step.  They are the TPU-native replacement for the
+doubling min-table per step.  They are the vectorized replacement for the
 reference's sequential stack scans inside ANSV
 (reference ``include/ansv.hpp:292-405``) and for its succinct RMQ walks:
 instead of a data-dependent stack, every element binary-searches the
-doubling table in lockstep on the VPU.
+doubling table in lockstep.
 
 Pure per-shard compute (no collectives); usable inside or outside shard_map.
 """
@@ -24,12 +24,11 @@ INT32_INF = jnp.iinfo(jnp.int32).max
 # Hierarchical-window walks (T-ary min tree + masked row gathers)
 #
 # The doubling-table walks above do O(log s) *random single-element* gathers
-# per query — ~10ns each on TPU, i.e. seconds at 16M queries.  The T-ary
-# formulation replaces them with ~2·log_T(s) *row* gathers of T elements
-# (row-aligned jnp.take is bandwidth-bound): ascend the min tree until an
-# ancestor's row holds a qualifying sibling, then descend picking the
-# last/first qualifying child.  ~3-5x faster at multi-M query counts and
-# O(s·T/(T-1)) memory instead of O(s log s).
+# per query.  The T-ary formulation replaces them with ~2·log_T(s) *row*
+# gathers of T elements (row-aligned jnp.take is bandwidth-bound): ascend
+# the min tree until an ancestor's row holds a qualifying sibling, then
+# descend picking the last/first qualifying child, in O(s·T/(T-1)) memory
+# instead of O(s log s).
 # ---------------------------------------------------------------------------
 
 _T = 128

@@ -1,6 +1,6 @@
 """Distributed All-Nearest-Smaller-Values over a block-sharded array.
 
-TPU-native redesign of the reference's generalized ANSV
+Mesh-native redesign of the reference's generalized ANSV
 (``include/ansv.hpp:1304-1740``): instead of stack scans + lr_mins
 exchanges with 5 comm-pairing policies, every element resolves its match
 with
@@ -23,6 +23,7 @@ All ``*_local`` functions run inside ``jax.shard_map`` over the mesh axis.
 from __future__ import annotations
 
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -257,106 +258,38 @@ def _left_match_local_only(x, s: int, typ: int):
     return idx, jnp.where(idx == inf, 0, val).astype(idt)
 
 
+#: single-shard ANSV engines selectable through ``PSAC_NSV``
+ENGINES = ("block", "walk")
+
+
 def _engine() -> str:
     """Single-shard ANSV engine selection (``PSAC_NSV`` env):
 
-    - ``hybrid`` (TPU default, round 5): the suffix tree's (furthest_eq,
-      nearest_sm) pass runs on the tile-spine engine
-      (``psac_tpu.ops.tansv``: in-tile VPU all-pairs + the scalar scan
-      over run-compressed weak-minima spines — 0.35 s at 16M vs the dual
-      scan's 1.07 s); other combos dispatch per side — nearest_sm /
-      nearest_eq on the blocked vectorized engine (~0.21 s), furthest_eq
-      on the Pallas run-stack scan (~0.53 s).
-    - ``spine``: force the tile-spine engine for the ST pass (same as
-      hybrid there); other combos as hybrid.
-    - ``scan``: the Pallas run-stack scalar kernel — the dual-direction
-      variant answers BOTH sides in one pass (the r4 default; the dual
-      pass costs exactly the sum of two single passes, so replacing the
-      cheap-side chain with VPU work strictly wins).
-    - ``block`` (default off-TPU): the blocked vectorized engine
-      (``psac_tpu.ops.bansv``) for every type — furthest_eq pays a
-      (PSV, value)-group head table (~0.99 s at 16M: 3-key sort + two
-      16M sorts/gathers), so it loses to the scan for that type on TPU.
-    - ``walk``: the hierarchical-window walks (the multi-shard fallback
-      engine; ~7 random row-gathers per element at ~50GB/s).
+    - ``block`` (default): the blocked vectorized engine
+      (``psac_tpu.ops.bansv``) for every match type — sorts, scans and
+      gathers that XLA lowers on any backend; ``furthest_eq`` also builds a
+      (PSV, value)-group head table.
+    - ``walk``: the hierarchical-window walks (the engine the multi-shard
+      pipeline answers its routed queries with).
+
+    Multi-shard meshes always run the routed walk pipeline.
     """
-    import os
-    dflt = "hybrid" if jax.default_backend() == "tpu" else "block"
-    return os.environ.get("PSAC_NSV", dflt)
-
-
-def _use_scan() -> bool:
-    return (_engine() in ("scan", "hybrid", "spine")
-            and jax.default_backend() == "tpu")
-
-
-def _scan_side(typ: int) -> bool:
-    """Does this match type run on the scalar scan under the hybrid engine?
-    (furthest_eq: the blocked head table costs ~2x the scan; the nearest
-    types are pure block_psv passes at ~0.4x.)"""
-    return _engine() == "scan" or typ == FURTHEST_EQ
-
-
-def _dual_match_p1(x, s: int, typ_l: int, typ_r: int):
-    """Single-shard both-sides matches in ONE Pallas pass (the forward and
-    reverse run-stack chains are independent, so interleaving them fills
-    the scalar unit's load-use stalls).  Returns (lidx, lval, ridx_r,
-    rval_r) with the right-side outputs still in reversed coordinates
-    (the caller's shared postlude flips them)."""
-    from psac_tpu.ops.nsv_scan import CHUNK, nsv_scan_dual
-
-    pad = (-s) % CHUNK
-    xr = x[::-1]
-    if pad:
-        z = jnp.zeros((pad,), x.dtype)
-        xp = jnp.concatenate([x, z])
-        xrp = jnp.concatenate([xr, z])
-    else:
-        xp, xrp = x, xr
-    il, vl, ir, vr, ovf = nsv_scan_dual(xp, xrp, typ_l, typ_r, False, (AXIS,))
-    il, vl, ir, vr = il[:s], vl[:s], ir[:s], vr[:s]
-
-    def scan_res(_):
-        return (jnp.where(il < 0, NONSV, il), jnp.where(il < 0, 0, vl),
-                jnp.where(ir < 0, NONSV, ir), jnp.where(ir < 0, 0, vr))
-
-    def walk_res(_):
-        li, lv_ = _left_match_local_only(x, s, typ_l)
-        ri, rv_ = _left_match_local_only(xr, s, typ_r)
-        return li, lv_, ri, rv_
-
-    return lax.cond(ovf == 0, scan_res, walk_res, None)
+    eng = os.environ.get("PSAC_NSV") or "block"
+    if eng not in ENGINES:
+        raise ValueError(f"PSAC_NSV must be one of {ENGINES}: {eng!r}")
+    return eng
 
 
 def _left_match_p1(x, s: int, typ: int):
-    """Single-shard one-side fast path (see ``_engine``)."""
+    """Single-shard one-side matches on the selected engine."""
+    if _engine() == "walk":
+        return _left_match_local_only(x, s, typ)
+    from psac_tpu.ops.bansv import nsv_left
+
     idt = x.dtype
-    eng = _engine()
-    if eng == "block" or (eng in ("hybrid", "spine")
-                          and typ != FURTHEST_EQ):
-        from psac_tpu.ops.bansv import nsv_left
-
-        idx, val = nsv_left(x, typ)
-        return (jnp.where(idx < 0, nonsv_for(idt), idx.astype(idt)),
-                val.astype(idt))
-    if not _use_scan() or x.dtype != jnp.int32:
-        return _left_match_local_only(x, s, typ)
-
-    from psac_tpu.ops.nsv_scan import CHUNK, nsv_scan_left
-
-    pad = (-s) % CHUNK
-    xp = jnp.concatenate([x, jnp.zeros((pad,), x.dtype)]) if pad else x
-    idx, val, ovf = nsv_scan_left(xp, typ, False, (AXIS,))
-    idx = idx[:s]
-    val = val[:s]
-
-    def scan_res(_):
-        return jnp.where(idx < 0, NONSV, idx), jnp.where(idx < 0, 0, val)
-
-    def walk_res(_):
-        return _left_match_local_only(x, s, typ)
-
-    return lax.cond(ovf == 0, scan_res, walk_res, None)
+    idx, val = nsv_left(x, typ)
+    return (jnp.where(idx < 0, nonsv_for(idt), idx.astype(idt)),
+            val.astype(idt))
 
 
 def _left_match(x, s: int, p: int, typ: int, cap: int | None = None):
@@ -389,52 +322,11 @@ def ansv_local(x_l, s: int, p: int, left_type: int, right_type: int,
     routing buffers via ``route.cap_for``; nonzero ovf means the caller must
     retry with a larger capscale — results are incomplete).
     """
-    # the Pallas run-stack kernel is int32-only; wider values (int64 LCP
-    # arrays of >= 2^31-char texts) take the dtype-generic walk path.
-    # The one-pass dual kernel only pays when BOTH sides would run on the
-    # scan; under the hybrid engine a nearest-type side runs on the block
-    # engine instead (per-side dispatch in _left_match_p1).
-    # (the spine path is TPU-only: interpret-mode pallas_call inside
-    # shard_map trips a jax vma check; CPU coverage is direct-call tests.
-    # It serves the suffix-tree pass under the default hybrid engine:
-    # 0.35 s at 16M vs the dual scan's 1.07 s / per-side hybrid's 0.86 s)
-    eng = _engine()
-    if (p == 1 and eng in ("hybrid", "spine")
-            and jax.default_backend() == "tpu"
-            and x_l.dtype == jnp.int32
-            and left_type == FURTHEST_EQ and right_type == NEAREST_SM
-            and s % 2048 == 0):
-        from psac_tpu.ops.tansv import tansv_feq_nsm
-
-        li0, lv0, ri0, rv0, tovf = tansv_feq_nsm(x_l, s, (AXIS,), False)
-
-        def spine_res(_):
-            return (jnp.where(li0 < 0, NONSV, li0),
-                    jnp.where(li0 < 0, 0, lv0),
-                    jnp.where(ri0 < 0, NONSV, ri0),
-                    jnp.where(ri0 < 0, 0, rv0))
-
-        def dual_res(_):
-            if jax.default_backend() != "tpu":
-                li, lv_ = _left_match_local_only(x_l, s, left_type)
-                ri, rv_ = _left_match_local_only(x_l[::-1], s, right_type)
-                return li, lv_, ri, rv_
-            return _dual_match_p1(x_l, s, left_type, right_type)
-
-        lidx, lval, ridx_r, rval_r = lax.cond(tovf == 0, spine_res,
-                                              dual_res, None)
-        ovf = jnp.int32(0)
-    elif (p == 1 and _use_scan() and x_l.dtype == jnp.int32
-            and _scan_side(left_type) and _scan_side(right_type)):
-        lidx, lval, ridx_r, rval_r = _dual_match_p1(
-            x_l, s, left_type, right_type)
-        ovf = jnp.int32(0)
-    else:
-        cap = cap_for(s, p, capscale)
-        lidx, lval, ovf_l = _left_match(x_l, s, p, left_type, cap=cap)
-        xr = _reverse_dist(x_l, p)
-        ridx_r, rval_r, ovf_r = _left_match(xr, s, p, right_type, cap=cap)
-        ovf = ovf_l + ovf_r
+    cap = cap_for(s, p, capscale)
+    lidx, lval, ovf_l = _left_match(x_l, s, p, left_type, cap=cap)
+    xr = _reverse_dist(x_l, p)
+    ridx_r, rval_r, ovf_r = _left_match(xr, s, p, right_type, cap=cap)
+    ovf = ovf_l + ovf_r
     ridx_r = _reverse_dist(ridx_r, p)
     rval = _reverse_dist(rval_r, p)
     N = s * p

@@ -65,7 +65,7 @@ def global_shift_left(x, d, q: int, p: int):
     """out[g] = x[g + d] over the global index space, 0 past the end.
 
     ``d = q*s + r`` with the shard-distance ``q`` static (it selects the
-    ppermute pattern) and the remainder ``r`` traced. This is the TPU
+    ppermute pattern) and the remainder ``r`` traced. This is the mesh
     equivalent of the reference's ``shift_vector`` doubling shift
     (``include/shifting.hpp:32-122``): at most two neighbor-of-distance-q
     transfers per shard.
@@ -124,7 +124,7 @@ def exscan_scalar(v, p: int, op: str = "add", init=0):
     """Exclusive scan of one scalar per shard across the axis; returns carry-in.
 
     Implemented as an allgather of the p scalars plus a masked local reduce —
-    the TPU equivalent of ``mxx::exscan`` (tiny, latency-bound).
+    the mesh equivalent of ``mxx::exscan`` (tiny, latency-bound).
     """
     all_v = lax.all_gather(v, AXIS)  # (p,)
     i = lax.axis_index(AXIS)

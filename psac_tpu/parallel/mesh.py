@@ -1,11 +1,11 @@
 """Mesh construction helpers.
 
 The framework shards every length-N array block-wise over a single mesh axis
-``AXIS`` — the TPU-native equivalent of the reference's ``mxx::blk_dist``
-block distribution (reference ``include/dvector.hpp:50-150``). Multi-dim
-physical meshes (hosts x chips) are flattened onto this one logical axis;
-collectives ride ICI within a host slice and DCN across, which XLA handles
-from the device order of the mesh.
+``AXIS`` — the mesh equivalent of the reference's ``mxx::blk_dist``
+block distribution (reference ``include/dvector.hpp:50-150``). Multi-host
+device sets are flattened onto this one logical axis; XLA routes the
+collectives over whatever links join the devices, from the device order of
+the mesh.
 """
 
 from __future__ import annotations
@@ -23,8 +23,7 @@ def make_mesh(num_devices: int | None = None) -> Mesh:
     Power-of-two shard counts run the merge-split bitonic sort network
     (parallel/sort.py); other counts — the reference tests awkward MPI rank
     counts like 13 — fall back to odd-even block transposition (p stages),
-    so any device count works.  TPU slices are power-of-two shaped in
-    practice, which keeps the bitonic path on real hardware.
+    so any device count works.
     """
     devs = jax.devices()
     p = num_devices or len(devs)

@@ -59,8 +59,9 @@ def _bucket_by_dest(dest, p: int, cap: int, skip=None):
     order = jnp.argsort(dkey, stable=True).astype(jnp.int32)
     dsort = dkey[order]
     # slot within the destination bucket = position - start of the run
-    # (runs are contiguous in dsort; cummax of the run-start positions —
-    # NOT searchsorted, which lowers to a ~20x slower kernel on TPU)
+    # (runs are contiguous in dsort; cummax of the run-start positions
+    # instead of searchsorted, a lowering choice made on the previous
+    # target — ROADMAP C3)
     i = jnp.arange(m, dtype=jnp.int32)
     is_start = jnp.concatenate(
         [jnp.ones((1,), jnp.bool_), dsort[1:] != dsort[:-1]])
@@ -241,8 +242,8 @@ def route_scatter(dest_idx, values: tuple, targets: tuple, valid, s: int, p: int
 
     if p == 1:
         # invalid records land on the drop slot tgt_len, so no old-value
-        # reads.  NB: separate 1-D scatters — a multi-column row scatter
-        # lowers ~13x slower on TPU for large targets.
+        # reads.  NB: separate 1-D scatters instead of one multi-column row
+        # scatter (a lowering choice made on the previous target; ROADMAP C3).
         loc = jnp.where(valid, local_flat(safe_idx, slots), tgt_len)
         outs = []
         for tgt, v, how in zip(targets, values, combine):

@@ -4,14 +4,15 @@ The reference's single most performance-critical backend call is the
 distributed sample sort ``mxx::sort`` (SURVEY.md §2 L0: ``idxsort.hpp:60``,
 ``suffix_array.hpp:723,758,1191``). Sample sort needs ragged all-to-all
 exchanges, which SPMD/XLA cannot express with static shapes — so the
-TPU-native design is a **merge-split bitonic sort of sorted shard blocks**:
+mesh design is a **merge-split bitonic sort of sorted shard blocks**:
 
   1. each shard sorts its block locally (``lax.sort``, multi-key),
   2. the bitonic network over p blocks runs log2(p)*(log2(p)+1)/2
      compare-exchange stages; each stage is one full-shard ``ppermute`` to the
      partner plus a local 2s merge, keeping the lower or upper half.
 
-Every stage has static shapes and saturates ICI with s-element messages. By
+Every stage has static shapes and moves s-element messages between device
+pairs. By
 the 0-1 principle, merge-split bitonic over locally-sorted blocks yields a
 globally sorted, block-distributed result for arbitrary inputs.
 

@@ -3,7 +3,7 @@
 The reference reads per-rank file blocks via MPI-IO and keeps O(n/p)
 bytes per rank end to end (``src/psac.cpp:85``,
 ``include/suffix_array.hpp:130-166`` ``mxx::coll_file`` /
-``file_block_decompose``).  TPU equivalent:
+``file_block_decompose``).  Mesh equivalent:
 ``jax.make_array_from_callback`` builds the block-sharded global array
 from per-ADDRESSABLE-shard callbacks, so each process materializes only
 its own shards' bytes (no full-n host allocation anywhere on the staging

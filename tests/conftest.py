@@ -1,13 +1,20 @@
 """Test harness: 8 virtual CPU devices (the reference tests the same way —
-oversubscribed mpiexec on one machine, SURVEY.md §4)."""
+oversubscribed mpiexec on one machine, SURVEY.md §4).
+
+``PSAC_TEST_ON_GPU=1`` leaves JAX on its default backend instead, for the
+``gpu``-marked tests: ``PSAC_TEST_ON_GPU=1 python -m pytest -m gpu -n 0
+tests/`` on a GPU host (one process: a second one could not reserve the
+card's memory)."""
 
 import os
 
-os.environ["XLA_FLAGS"] = os.environ.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=8"
+if os.environ.get("PSAC_TEST_ON_GPU") != "1":
+    os.environ["XLA_FLAGS"] = os.environ.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=8"
 
 import jax  # noqa: E402
 
-jax.config.update("jax_platforms", "cpu")
+if os.environ.get("PSAC_TEST_ON_GPU") != "1":
+    jax.config.update("jax_platforms", "cpu")
 
 import pytest  # noqa: E402
 
@@ -30,9 +37,8 @@ _SMOKE = {
     "test_desa.py::test_desa_mississippi": None,
     "test_seq_query.py::test_seq_index_locate": None,
     "test_samplelcp.py::test_sample_lcp_equivalence": None,
-    # round-5 features
-    "test_ansv.py::test_tansv_vs_oracle[straddle]": None,
-    "test_ansv.py::test_tansv_vs_oracle[all_equal]": None,
+    "test_ansv.py::test_st_pass_tile_edges[straddle-mesh1]": None,
+    "test_ansv.py::test_st_pass_tile_edges[all_equal-mesh8]": None,
     "test_desa.py::test_construct_lc_config_wired": None,
 }
 
@@ -56,3 +62,14 @@ def mesh8():
 def mesh1():
     from psac_tpu.parallel.mesh import make_mesh
     return make_mesh(1)
+
+
+@pytest.fixture
+def gpu():
+    """The GPU device; skips the test where JAX's default device is not one
+    (decided here, at run time, so every worker collects the same tests)."""
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        pytest.skip("needs a GPU: PSAC_TEST_ON_GPU=1 python -m pytest "
+                    "-m gpu -n 0 tests/ on a GPU host")
+    return dev

@@ -95,9 +95,7 @@ def test_furthest_eq_is_canonical(mesh8):
 @pytest.mark.parametrize("lt", TYPES)
 @pytest.mark.parametrize("rt", TYPES)
 def test_dist_vs_oracle_single_shard(mesh1, lt, rt):
-    """p==1 single-shard semantics (on non-TPU backends this takes the walk
-    fallback, not the Pallas kernel — see test_nsv_scan_kernel_interpret for
-    direct kernel coverage)."""
+    """p==1 single-shard semantics (the default ``block`` engine)."""
     from psac_tpu.parallel.ansv import ansv
     for name, a in inputs():
         n = len(a)
@@ -105,29 +103,6 @@ def test_dist_vs_oracle_single_shard(mesh1, lt, rt):
         got_l, got_r = ansv(a, lt, rt, mesh=mesh1)
         np.testing.assert_array_equal(got_l, want_l, err_msg=f"left {name}")
         np.testing.assert_array_equal(got_r, want_r, err_msg=f"right {name}")
-
-
-@pytest.mark.parametrize("typ", TYPES)
-def test_nsv_scan_kernel_interpret(typ):
-    """Direct coverage of the Pallas run-stack scan (ops/nsv_scan.py) in
-    interpret mode, outside shard_map — the kernel the TPU suffix-tree path
-    depends on has no other CPU coverage."""
-    import jax.numpy as jnp
-
-    from psac_tpu.ops.nsv_scan import CHUNK, nsv_scan_left
-
-    rng = np.random.RandomState(11)
-    for a in [rng.randint(0, 5, size=2 * CHUNK).astype(np.int32),
-              rng.randint(0, 10**6, size=CHUNK).astype(np.int32)]:
-        want_l = ansv_seq(a, typ, typ)[0]
-        idx, val, ovf = nsv_scan_left(jnp.asarray(a), typ, True)
-        assert int(ovf) == 0
-        got = np.asarray(idx, np.int64)
-        got[got < 0] = NONSV
-        np.testing.assert_array_equal(got, want_l)
-        has = want_l != NONSV
-        np.testing.assert_array_equal(np.asarray(val)[has],
-                                      a[want_l[has].astype(np.int64)])
 
 
 @pytest.mark.parametrize("typ", TYPES)
@@ -163,33 +138,6 @@ def test_hierarchical_walk_chunked(typ, monkeypatch):
                 w = j
                 break
         assert got2[i] == w or (w == n and got2[i] >= n), (i, got2[i], w)
-
-
-@pytest.mark.parametrize("lt,rt", [(NEAREST_SM, NEAREST_SM),
-                                   (FURTHEST_EQ, NEAREST_SM),
-                                   (NEAREST_EQ, FURTHEST_EQ)])
-def test_nsv_scan_dual_interpret(lt, rt):
-    """The one-pass dual kernel (both sides interleaved) must match the
-    oracle for both outputs."""
-    import jax.numpy as jnp
-
-    from psac_tpu.ops.nsv_scan import CHUNK, nsv_scan_dual
-
-    rng = np.random.RandomState(13)
-    a = rng.randint(0, 5, size=CHUNK).astype(np.int32)
-    want_l, want_r = ansv_seq(a, lt, rt)
-    il, vl, ir, vr, ovf = nsv_scan_dual(jnp.asarray(a),
-                                        jnp.asarray(a[::-1].copy()), lt, rt,
-                                        True)
-    assert int(ovf) == 0
-    got_l = np.asarray(il, np.int64)
-    got_l[got_l < 0] = NONSV
-    np.testing.assert_array_equal(got_l, want_l)
-    n = len(a)
-    got_rr = np.asarray(ir, np.int64)  # reversed coords, reversed alignment
-    got_r = got_rr[::-1].copy()
-    got_r = np.where(got_r < 0, NONSV, n - 1 - got_r)
-    np.testing.assert_array_equal(got_r, want_r)
 
 
 @pytest.mark.parametrize("typ", TYPES)
@@ -309,7 +257,9 @@ def test_local_indexing(mesh8, lt, rt):
         np.testing.assert_array_equal(val[~miss], a[want[~miss]])
 
 
-def _tansv_cases():
+def _tile_edge_cases():
+    """Adversarial arrays around 512-element tile boundaries (runs that
+    straddle tile edges, all-equal tiles, two-level runs)."""
     rng = np.random.RandomState(11)
     T = 512
     cases = {
@@ -330,101 +280,86 @@ def _tansv_cases():
     return cases
 
 
-@pytest.mark.parametrize("name", sorted(_tansv_cases()))
-def test_tansv_vs_oracle(name):
-    """Tile-spine engine (ops/tansv) vs the sequential oracle on adversarial
-    tile-boundary inputs (VERDICT r4 item 1: runs straddling tile edges,
-    all-equal tiles), in interpret mode on CPU."""
-    import jax
-    import jax.numpy as jnp
-
-    from psac_tpu.ops.tansv import tansv_feq_nsm
-
-    a = _tansv_cases()[name]
-    n = len(a)
-    want_l, want_r = ansv_seq(a, FURTHEST_EQ, NEAREST_SM, nonsv=NONSV)
-    li, lv, ri_r, rv_r, ovf = jax.jit(
-        tansv_feq_nsm, static_argnums=(1, 2, 3))(jnp.asarray(a), n, (), True)
-    assert int(ovf) == 0, f"unexpected spine overflow for {name}"
-    got_l = np.asarray(li).astype(np.int64)
-    got_l[got_l < 0] = NONSV
-    got_r = np.asarray(ri_r).astype(np.int64)
-    got_r = np.where(got_r < 0, NONSV, n - 1 - got_r)[::-1]
-    np.testing.assert_array_equal(got_l, want_l, err_msg=name)
-    np.testing.assert_array_equal(got_r, want_r, err_msg=name)
-    # values at the matches
-    lv = np.asarray(lv)
-    has = got_l != NONSV
-    np.testing.assert_array_equal(lv[has], a[got_l[has]], err_msg=name)
-
-
-def test_tansv_overflow_flag():
-    """A strictly decreasing array makes every element a chain element;
-    the spine exceeds s//CAPDIV and the engine must report overflow (the
-    caller falls back to the full scan)."""
-    import jax
-    import jax.numpy as jnp
-
-    from psac_tpu.ops.tansv import tansv_feq_nsm
-
-    a = np.arange(4096, 0, -1).astype(np.int32)
-    *_, ovf = jax.jit(tansv_feq_nsm, static_argnums=(1, 2, 3))(
-        jnp.asarray(a), len(a), (), True)
-    assert int(ovf) > 0
-
-
-def test_spine_engine_off_tpu_gate(monkeypatch, mesh1):
-    """PSAC_NSV=spine on a non-TPU backend must take the fallback paths
-    (the spine branch is TPU-only: interpret-mode pallas inside shard_map
-    trips a jax vma check) and still answer correctly."""
-    from psac_tpu.parallel import ansv as pansv
-
-    monkeypatch.setenv("PSAC_NSV", "spine")
-    pansv._JIT_CACHE.clear()
-    rng = np.random.RandomState(13)
-    try:
-        for a in (rng.randint(0, 9, 2048).astype(np.int32),
-                  np.arange(2048, 0, -1).astype(np.int32)):
-            n = len(a)
-            want_l, want_r = ansv_seq(a, FURTHEST_EQ, NEAREST_SM, nonsv=n)
-            got_l, got_r = pansv.ansv(a, FURTHEST_EQ, NEAREST_SM, mesh=mesh1)
-            np.testing.assert_array_equal(got_l, want_l)
-            np.testing.assert_array_equal(got_r, want_r)
-    finally:
-        pansv._JIT_CACHE.clear()
-
-
-@pytest.mark.parametrize("seed", [0, 1, 2])
-def test_tansv_randomized(seed):
-    """Randomized tansv-vs-oracle sweep over run-heavy distributions,
-    including a real LCP array (repetitive text — long equal runs)."""
-    import jax
-    import jax.numpy as jnp
-
+def _real_lcp_cases(seed):
+    """Run-heavy arrays and the LCP array of a repetitive text."""
     from psac_tpu.ops.oracle import lcp_kasai, suffix_array_np
-    from psac_tpu.ops.tansv import tansv_feq_nsm
 
     rng = np.random.RandomState(seed + 50)
     cases = [rng.randint(0, 3, 4096).astype(np.int32),
              np.repeat(rng.randint(0, 5, 64), 64).astype(np.int32)[:4096]]
     text = bytes(rng.randint(97, 100, 600).astype(np.uint8)) * 8
     sa = suffix_array_np(text)
-    lcp = lcp_kasai(text, sa).astype(np.int32)
-    cases.append(np.concatenate(
-        [lcp, np.zeros(4096 - len(lcp) % 4096, np.int32)])[:4096]
-        if len(lcp) < 4096 else lcp[:4096])
-    fn = jax.jit(tansv_feq_nsm, static_argnums=(1, 2, 3))
-    for a in cases:
-        n = len(a)
-        want_l, want_r = ansv_seq(a, FURTHEST_EQ, NEAREST_SM, nonsv=NONSV)
-        li, lv, ri_r, rv_r, ovf = fn(jnp.asarray(a), n, (), True)
-        assert int(ovf) == 0
-        got_l = np.asarray(li).astype(np.int64)
-        got_l[got_l < 0] = NONSV
-        got_r = np.asarray(ri_r).astype(np.int64)
-        got_r = np.where(got_r < 0, NONSV, n - 1 - got_r)[::-1]
-        np.testing.assert_array_equal(got_l, want_l)
-        np.testing.assert_array_equal(got_r, want_r)
-        has_r = want_r != NONSV
-        rv = np.asarray(rv_r)[::-1]
-        np.testing.assert_array_equal(rv[has_r], a[want_r[has_r]])
+    cases.append(lcp_kasai(text, sa).astype(np.int32))
+    return cases
+
+
+def _check_st_pass(a, mesh):
+    """The suffix tree's ANSV pass (left furthest_eq, right nearest_sm)
+    equals the sequential oracle, indices and (local indexing) values."""
+    from psac_tpu.parallel.ansv import ansv
+
+    n = len(a)
+    want_l, want_r = ansv_seq(a, FURTHEST_EQ, NEAREST_SM, nonsv=n)
+    got_l, got_r = ansv(a, FURTHEST_EQ, NEAREST_SM, mesh=mesh)
+    np.testing.assert_array_equal(got_l, want_l)
+    np.testing.assert_array_equal(got_r, want_r)
+    (_, _, lv), (_, _, rv) = ansv(a, FURTHEST_EQ, NEAREST_SM, mesh=mesh,
+                                  indexing="local")
+    for want, val in ((want_l, lv), (want_r, rv)):
+        has = want != n
+        np.testing.assert_array_equal(val[has], a[want[has]])
+
+
+@pytest.mark.parametrize("mesh_name", ["mesh1", "mesh8"])
+@pytest.mark.parametrize("name", sorted(_tile_edge_cases()))
+def test_st_pass_tile_edges(name, mesh_name, request):
+    """Tile-edge adversarial arrays through the public ``ansv`` on one shard
+    (block engine) and eight shards (routed walk engine)."""
+    _check_st_pass(_tile_edge_cases()[name], request.getfixturevalue(mesh_name))
+
+
+@pytest.mark.parametrize("mesh_name", ["mesh1", "mesh8"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_st_pass_randomized(seed, mesh_name, request):
+    """Randomized run-heavy arrays and a real LCP array (repetitive text —
+    long equal runs) on both engines."""
+    mesh = request.getfixturevalue(mesh_name)
+    for a in _real_lcp_cases(seed):
+        _check_st_pass(a, mesh)
+
+
+@pytest.mark.parametrize("backend", ["cpu", "gpu", "other"])
+def test_engine_defaults_to_block(backend, monkeypatch):
+    """The single-shard engine does not depend on the backend."""
+    import jax
+
+    from psac_tpu.parallel import ansv as pansv
+
+    monkeypatch.delenv("PSAC_NSV", raising=False)
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    assert pansv._engine() == "block"
+
+
+@pytest.mark.parametrize("name", ["hybrid", "spine", "scan", "bogus"])
+def test_engine_rejects_unknown(name, monkeypatch):
+    from psac_tpu.parallel import ansv as pansv
+
+    monkeypatch.setenv("PSAC_NSV", name)
+    with pytest.raises(ValueError, match="PSAC_NSV"):
+        pansv._engine()
+
+
+def test_walk_engine_single_shard(monkeypatch, mesh1):
+    """PSAC_NSV=walk runs the single-shard pass on the hierarchical walks
+    and still answers like the oracle."""
+    from psac_tpu.parallel import ansv as pansv
+
+    monkeypatch.setenv("PSAC_NSV", "walk")
+    pansv._JIT_CACHE.clear()
+    try:
+        rng = np.random.RandomState(13)
+        for a in (rng.randint(0, 9, 2048).astype(np.int32),
+                  np.arange(2048, 0, -1).astype(np.int32)):
+            _check_st_pass(a, mesh1)
+    finally:
+        pansv._JIT_CACHE.clear()

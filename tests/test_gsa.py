@@ -7,23 +7,7 @@ families with closed-form GSA/GLCP) plus duplicate-string tie cases.
 import numpy as np
 import pytest
 
-
-def gsa_oracle(parts):
-    flat = b"".join(parts)
-    lens = np.array([len(x) for x in parts], np.int64)
-    n = len(flat)
-    eos = np.repeat(np.cumsum(lens), lens)
-    order = sorted(range(n), key=lambda i: (flat[i:eos[i]], i))
-    sa = np.array(order, np.int64)
-    lcp = np.zeros(n, np.int64)
-    for j in range(1, n):
-        a = flat[sa[j - 1]:eos[sa[j - 1]]]
-        b = flat[sa[j]:eos[sa[j]]]
-        k = 0
-        while k < len(a) and k < len(b) and a[k] == b[k]:
-            k += 1
-        lcp[j] = k
-    return sa, lcp
+from psac_tpu.ops.oracle import gsa_naive as gsa_oracle
 
 
 def check(mesh, parts):

@@ -32,3 +32,21 @@ def test_kasai_native():
     text = rand_dna(5000, seed=1)
     sa = native.suffix_array(text)
     np.testing.assert_array_equal(native.lcp_array(text, sa), lcp_kasai(text, sa))
+
+
+def test_native_builds_from_source(tmp_path, monkeypatch):
+    """The oracle library is never committed: ``_build`` compiles
+    ``sais.cpp`` and publishes it by an atomic rename, leaving no temporary
+    file behind; the fresh library answers like the NumPy oracle."""
+    so = tmp_path / "libpsac_native.so"
+    monkeypatch.setattr(native, "_DIR", str(tmp_path))
+    monkeypatch.setattr(native, "_SO", str(so))
+    monkeypatch.setattr(native, "_lib", None)
+    native._build()
+    assert so.exists()
+    assert [p.name for p in tmp_path.iterdir()] == [so.name]
+    text = rand_dna(3000, seed=4)
+    sa = native.suffix_array(text)
+    np.testing.assert_array_equal(sa, suffix_array_np(text))
+    np.testing.assert_array_equal(native.lcp_array(text, sa),
+                                  lcp_kasai(text, sa))

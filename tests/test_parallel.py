@@ -165,8 +165,8 @@ def test_bulk_rmq_capacity_overflow_retry(mesh8):
     """A deliberately skewed query set (every range lands on shard 0) must
     overflow a tight per-destination capacity and report it, and the
     cap=None retry (capacity = q, the reference's O(m) ``bulk_rma`` bound)
-    must answer exactly (VERDICT r2: no unbounded O(p*q) buffers on the
-    per-iteration resolve path without an overflow escape hatch)."""
+    must answer exactly (no unbounded O(p*q) buffers on the per-iteration
+    resolve path without an overflow escape hatch)."""
     from psac_tpu.ops.rmq import build_local_rmq
     from psac_tpu.parallel.par_rmq import bulk_rmq_local
     from psac_tpu.parallel.collectives import shard_minima
@@ -206,7 +206,7 @@ def test_bulk_rmq_capacity_overflow_retry(mesh8):
 def test_route_apply_chunked_full_pass(mesh8):
     """The cap=None (never-overflow) pass routes in p chunks so worst-case
     exchange buffers stay O(m + p*chunk) ~ 2m rows instead of O(p*m)
-    (VERDICT r3: a 1 GB-per-operand spike at 16M x p=16).  Fully skewed
+    (instead of a 1 GB-per-operand spike at 16M x p=16).  Fully skewed
     destinations (every record to shard 0) must still answer exactly."""
     import psac_tpu.parallel.route as route_mod
 
